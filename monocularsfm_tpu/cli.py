@@ -152,31 +152,19 @@ def cmd_export(cfg, map_obj, out_dir, log=print):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        prog="sfm", description="TPU-native incremental Structure-from-Motion"
+        prog="sfm", description="Incremental Structure-from-Motion on an accelerator"
     )
     sub = parser.add_subparsers(dest="command", required=True)
     for name in ("extract", "match", "check-matches", "reconstruct", "pipeline"):
         p = sub.add_parser(name)
-        p.add_argument("config", help="YAML config (reference-style or nested)")
+        p.add_argument(
+            "config", help="YAML or JSON config (reference-style or nested)")
         if name == "check-matches":
             p.add_argument(
                 "--render-dir", default=None,
                 help="write side-by-side match PNGs for the top pairs here",
             )
     args = parser.parse_args(argv)
-
-    # Persistent XLA compilation cache: the incremental loop compiles one
-    # kernel per capacity bucket; caching makes reruns and resumes cheap.
-    try:
-        import jax
-
-        if jax.config.jax_compilation_cache_dir is None:
-            jax.config.update(
-                "jax_compilation_cache_dir",
-                str(pathlib.Path.home() / ".cache" / "monocularsfm_tpu_xla"),
-            )
-    except Exception:
-        pass
 
     from monocularsfm_tpu.config import load_yaml
 

@@ -25,17 +25,19 @@ class ExtractionConfig:
     max_image_size: int = 3200
     num_features: int = 8024
     normalization: str = "l1_root"  # l1_root | l2 (FeatureUtils.cpp:260-300)
-    backend: str = "jax"  # jax (pallas/XLA SIFT) | opencv (host fallback)
+    backend: str = "jax"  # jax (XLA SIFT) | opencv (host fallback)
     batch_size: int = 4    # images extracted per device dispatch
-    # HBM guard: cap the dispatch batch so octave-0 working set (~23 fp32
-    # planes per image after the 2x upsample) stays within budget; large
-    # images (max_image_size 3200 -> 6400x4800 upsampled) process one at a
-    # time, small ones keep the full batch.
+    # Device-memory guard: cap the dispatch batch so the octave-0 working
+    # set (~23 fp32 planes per image after the 2x upsample) stays within
+    # budget; large images (max_image_size 3200 -> 6400x4800 upsampled)
+    # process one at a time, small ones keep the full batch.  The value was
+    # sized for a 16 GB accelerator and has not been derived for the H100's
+    # 80 GB; it is conservative there.
     batch_pixel_budget: int = 48_000_000
     # Halve the per-octave candidate budget past the second octave (perf
     # lever); disable for scenes dominated by coarse-scale structure.
     decay_octave_budget: bool = True
-    # "patch": per-keypoint patches + interpolation matmuls (MXU path);
+    # "patch": per-keypoint patches + interpolation matmuls;
     # "gather": scattered row-gathers (legacy formulation, for A/B).
     sample_mode: str = "patch"
     # Descriptor device->host dtype; float16 halves the transfer bytes.
@@ -63,7 +65,7 @@ class MatchingConfig:
     # matcher but never implements it; FeatureMatching.h:137-141).
     vocab_num_words: int = 4096
     vocab_num_neighbors: int = 20    # retrieved partners per image
-    # TPU-native knobs.
+    # Device batching.
     pair_batch: int = 16             # image pairs matched per device dispatch
     # "jax" (device-batched matcher + F-RANSAC) | "opencv" (cv2 BFMatcher +
     # cv2.findFundamentalMat per pair — the reference's exact CPU path,
@@ -144,11 +146,13 @@ class BundleConfig:
     # images, sparse/iterative beyond): bundles over `dense_max_images`
     # switch to matrix-free PCG with long tracks split across rows.
     dense_max_images: int = 50
-    # The dense-Schur path materialises per-observation (6,3)/(2,6) blocks
-    # whose trailing dims tile-pad to (8,128) on TPU; beyond this padded
-    # observation capacity the flat-layout cached-PCG path (18 floats/obs)
-    # takes over even under dense_max_images.
-    dense_max_obs: int = 1_048_576  # = the proven 64k-point x 16 scale
+    # The dense-Schur path materialises per-observation (6,3)/(2,6) blocks;
+    # beyond this padded observation capacity the flat-layout cached-PCG
+    # path (18 floats/obs) takes over even under dense_max_images.  The
+    # value (64k points x track width 16) was sized on a 16 GB accelerator
+    # whose layouts padded those small blocks; it has not been derived for
+    # the H100.
+    dense_max_obs: int = 1_048_576
     pcg_iterations: int = 100
     track_width: int = 16             # observation-row width for split bundles
 
@@ -254,13 +258,19 @@ _MATCH_TYPE_ENUM = {
 
 
 def load_yaml(path: str | pathlib.Path) -> SfMConfig:
-    """Load a config.  Accepts both reference-style flat YAML and nested YAML."""
-    import yaml  # PyYAML ships with the image (transformers dependency)
-
+    """Load a config.  Accepts both reference-style flat keys and nested
+    trees, from YAML or (for a `.json` file) JSON.  JSON needs only the
+    standard library; YAML needs PyYAML."""
     with open(path) as f:
-        raw = yaml.safe_load(f) or {}
-    # Reference files start with "%YAML:1.0" (cv::FileStorage); yaml.safe_load
-    # handles the document fine once the directive line is tolerated.
+        if pathlib.Path(path).suffix.lower() == ".json":
+            raw = json.load(f)
+        else:
+            import yaml
+
+            # Reference files start with "%YAML:1.0" (cv::FileStorage);
+            # yaml.safe_load tolerates the directive line.
+            raw = yaml.safe_load(f)
+    raw = raw or {}
     cfg = SfMConfig()
     flat = _flatten(raw)
     for key, value in flat.items():

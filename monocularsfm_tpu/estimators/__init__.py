@@ -3,9 +3,9 @@
 Reference parity: the reference delegates to OpenCV calib3d (cv::findHomography,
 cv::findFundamentalMat, cv::findEssentialMat + recoverPose, cv::solvePnPRansac
 — see src/Reconstruction/Initializer.cpp and Registrant.cpp).  Here RANSAC is
-re-designed for the TPU: all M hypotheses are sampled, solved (batched
-SVD/eigh minimal solvers) and scored against all N candidates in a single
-fixed-shape dispatch — M×N residual evaluation rides the VPU/MXU instead of
+re-designed for an accelerator: all M hypotheses are sampled, solved
+(batched SVD/eigh minimal solvers) and scored against all N candidates in a
+single fixed-shape dispatch — M×N residual evaluation in parallel instead of
 an adaptive sequential loop.
 """
 

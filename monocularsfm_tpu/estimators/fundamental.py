@@ -4,9 +4,9 @@ Reference parity: the reference calls cv::findFundamentalMat (RANSAC, 4 px,
 conf 0.9999) in Initializer::FindFundanmental (Initializer.cpp:131-159) and
 with 3 px in FeatureUtils::FilterMatches (FeatureUtils.cpp:176-206).
 
-TPU-native design: M hypotheses are solved simultaneously — Hartley
+Device design: M hypotheses are solved simultaneously — Hartley
 normalisation, the 8x9 nullspace via A^T A + batched eigh (cheaper and more
-MXU-friendly than batched SVD of tall A), rank-2 enforcement via batched SVD
+matmul-friendly than batched SVD of tall A), rank-2 enforcement via batched SVD
 of the 3x3 F — then all M x N Sampson residuals in one pass.  A final
 least-squares refit on the winner's inliers (masked A^T A, one eigh)
 replicates OpenCV's LMedS-polish effect.

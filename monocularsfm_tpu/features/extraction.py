@@ -9,8 +9,11 @@ Reference parity: src/Feature/FeatureExtraction.cpp —
 
 Two backends behind one interface (the reference declares FeatureExtractorGPU
 but never implements it, FeatureExtraction.h:62-67 — here both are real):
-  - "jax": the XLA SIFT in ops/sift.py (the TPU path)
+  - "jax": the XLA SIFT in ops/sift.py (the device path)
   - "opencv": host cv2.SIFT fallback, kept for cross-validation
+
+Images are read through io/images.py: binary PGM/PPM need only numpy,
+compressed formats need OpenCV.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ import numpy as np
 
 from monocularsfm_tpu.config import ExtractionConfig
 from monocularsfm_tpu.database import Database
+from monocularsfm_tpu.io.images import PNM_EXTS, read_image, resize, to_gray
 
-IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"}
+IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"} | PNM_EXTS
 
 
 def list_images(images_path: str) -> list[pathlib.Path]:
@@ -33,13 +37,8 @@ def list_images(images_path: str) -> list[pathlib.Path]:
 
 
 def _load_gray_and_color(path):
-    import cv2
-
-    bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
-    if bgr is None:
-        raise IOError(f"cannot read image {path}")
-    gray = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
-    return gray, bgr
+    bgr = read_image(path)
+    return to_gray(bgr), bgr
 
 
 def _scale_for(max_size: int, h: int, w: int) -> float:
@@ -75,12 +74,8 @@ class FeatureExtractor:
         colors (N, 3) uint8 BGR, descriptors (N, 128) float32)."""
         h, w = gray.shape[:2]
         scale = _scale_for(self.cfg.max_image_size, h, w)
-        if scale != 1.0:
-            import cv2
-
-            gray_s = cv2.resize(gray, (int(w * scale), int(h * scale)))
-        else:
-            gray_s = gray
+        gray_s = (resize(gray, int(w * scale), int(h * scale))
+                  if scale != 1.0 else gray)
         sift = self._get_sift()
         if self.cfg.backend == "jax":
             kps, desc = sift.extract(gray_s)
@@ -146,12 +141,10 @@ class FeatureExtractor:
                 return count
 
             # jax backend: group by post-resize shape, dispatch in batches.
-            import cv2
-
             batch, metas = [], []
 
             def eff_batch_size(h, w):
-                """HBM guard: the octave-0 working set is ~23 fp32 planes per
+                """Memory guard: the octave-0 working set is ~23 fp32 planes per
                 image at 4x the input pixel count (2x upsample), so cap the
                 batch to cfg.batch_pixel_budget upsampled pixels."""
                 px = 4 * h * w
@@ -194,10 +187,8 @@ class FeatureExtractor:
                 gray, bgr = _load_gray_and_color(path)
                 h, w = gray.shape[:2]
                 scale = _scale_for(self.cfg.max_image_size, h, w)
-                gray_s = (
-                    cv2.resize(gray, (int(w * scale), int(h * scale)))
-                    if scale != 1.0 else gray
-                )
+                gray_s = (resize(gray, int(w * scale), int(h * scale))
+                          if scale != 1.0 else gray)
                 if batch and batch[0].shape != gray_s.shape:
                     flush()
                 batch.append(gray_s)

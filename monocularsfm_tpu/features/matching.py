@@ -8,7 +8,7 @@ Reference parity: src/Feature/FeatureMatching.cpp —
   preemptive filter on top-100-scale descriptors, keep pair if >= 4 matches
   (:102-178, citing Wu 2013)
 
-TPU-native design: descriptors live in a device-resident bank
+Device design: descriptors live in a device-resident bank
 (num_images, cap, 128); the host only decides *which* pairs to run; each
 dispatch matches a whole slab of pairs (ops/matching.py), then geometric
 verification runs as hypothesis-parallel F-RANSAC.  Every scheduling policy
@@ -88,14 +88,15 @@ class _MatcherBase:
             n = len(descs[i])
             bank[row, :n] = descs[i]
             mask[row, :n] = True
-        # On TPU the Pallas matcher casts descriptors to bf16 before the
-        # MXU matmul anyway, so shipping the bank as bf16 is output-
-        # preserving and halves the host->device transfer (0.5 GB of f32 at
-        # 128 images x 8192 cap — minutes over a remote-TPU link at scale).
-        if jax.default_backend() == "tpu":
-            return (jnp.asarray(bank.astype(np.float32), dtype=jnp.bfloat16),
-                    jnp.asarray(mask), kps, cap)
-        return jnp.asarray(bank), jnp.asarray(mask), kps, cap
+        if self.cfg.backend == "opencv":
+            # The reference's CPU path matches the f32 descriptors on the
+            # host; nothing goes to the device.
+            return bank, mask, kps, cap
+        # Both device matchers cast descriptors to bf16 before the
+        # similarity matmul, so a bf16 bank gives the same matches at half
+        # the host->device bytes.
+        return (jnp.asarray(bank, dtype=jnp.bfloat16), jnp.asarray(mask),
+                kps, cap)
 
     # -- geometric verification ---------------------------------------------
     def _verify_batch(self, uv_pairs: list[tuple[np.ndarray, np.ndarray]]):
@@ -163,11 +164,10 @@ class _MatcherBase:
         """Per-pair cv2 BFMatcher knn2 + ratio + cross-check + distance
         filter + cv2.findFundamentalMat — byte-for-byte the reference's CPU
         matching loop (FeatureUtils.cpp:141-206, FeatureMatching.cpp:10-73).
-        This is the honest CPU-baseline anchor, NOT a TPU path."""
+        This is the honest CPU-baseline anchor, not a device path."""
         import cv2
 
-        # The TPU path ships the bank as bf16; cv2 only takes CV_32F.
-        bank_h = np.asarray(bank).astype(np.float32)
+        bank_h = np.asarray(bank, np.float32)  # cv2 only takes CV_32F
         mask_h = np.asarray(mask)
         row_of = {i: r for r, i in enumerate(image_ids)}
         cfg = self.cfg

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 _EPS = 1e-12
 # Point transforms are (3,3)x(3) contractions — negligible FLOPs but
 # precision-critical (sub-pixel reprojection error feeds accept/reject
-# thresholds), so force full fp32 accumulation on the MXU.
+# thresholds), so force full fp32 products (no TF32).
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 

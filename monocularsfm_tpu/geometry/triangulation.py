@@ -18,8 +18,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# DLT conditioning is precision-critical: on TPU the MXU computes fp32
-# contractions in bf16 by default, which alone costs ~2 px of reprojection
+# DLT conditioning is precision-critical: a reduced-precision contraction
+# (TF32 on a GPU keeps ~3 decimal digits) can cost pixels of reprojection
 # error on synthetic exact data.  These contractions are tiny (4x4 outputs),
 # so full-precision accumulation is free.
 _HIGHEST = jax.lax.Precision.HIGHEST

@@ -58,7 +58,9 @@ def dump_undistorted_images(map_obj, images_path, out_dir, K, dist,
     `out_dir` (parity: Map::WriteOpenMVS's undistorted_images dump,
     Map.cpp:1490-1519).  Identity copy when all coefficients are zero.
     Returns the list of (image_id, written_name)."""
-    import cv2
+    from scipy.ndimage import map_coordinates
+
+    from monocularsfm_tpu.io.images import read_image, write_image
 
     out_dir = pathlib.Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -74,22 +76,35 @@ def dump_undistorted_images(map_obj, images_path, out_dir, K, dist,
         # rewrite so a re-export after K/dist changes never reuses stale
         # undistorted pixels.
         dst = out_dir / name.replace("/", "__").replace("\\", "__")
-        bgr = cv2.imread(str(src), cv2.IMREAD_COLOR)
-        if bgr is None:
+        try:
+            bgr = read_image(src)
+        except (OSError, ValueError):
             if log:
-                log(f"[openmvs] missing source image {src}, skipped")
+                log(f"[openmvs] cannot read source image {src}, skipped")
             continue
         h, w = bgr.shape[:2]
         if np.any(np.asarray(dist) != 0.0):
             if maps is None or maps[0].shape != (h, w):
                 maps = _undistort_maps(np.asarray(K, float), dist, w, h)
-            und = cv2.remap(bgr, maps[0], maps[1], cv2.INTER_LINEAR)
+            # Bilinear remap with a zero border (cv::remap INTER_LINEAR,
+            # BORDER_CONSTANT).
+            und = np.stack([
+                map_coordinates(bgr[..., ch].astype(np.float32),
+                                (maps[1], maps[0]), order=1,
+                                mode="constant", cval=0.0)
+                for ch in range(bgr.shape[2])
+            ], axis=-1)
+            und = np.clip(np.rint(und), 0, 255).astype(np.uint8)
         else:
             und = bgr
-        if cv2.imwrite(str(dst), und):
-            written.append((img_id, dst.name))
-        elif log:
-            log(f"[openmvs] failed to write {dst}, archive will reference the original")
+        try:
+            write_image(dst, und)
+        except OSError:
+            if log:
+                log(f"[openmvs] failed to write {dst}, archive will "
+                    f"reference the original")
+            continue
+        written.append((img_id, dst.name))
     return written
 
 

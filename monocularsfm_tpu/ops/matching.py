@@ -1,14 +1,15 @@
-"""MXU descriptor matching: tiled similarity matmul + ratio + cross-check.
+"""Descriptor matching: tiled similarity matmul + ratio + cross-check.
 
 Reference parity: src/Feature/FeatureUtils.cpp —
   ComputeMatches        (:141-157)  BF knn-2 + Lowe ratio 0.8
   ComputeCrossMatches   (:160-174)  ratio both directions + mutual CrossCheck
   FilterMatchesByDistance (:208-218) absolute L2 distance <= 0.7
 
-TPU-native design: descriptors are unit-L2 (RootSIFT), so L2 distance is
-dist = sqrt(2 - 2*sim) and knn search becomes one [N, N] similarity matmul on
-the MXU.  Instead of materialising the full matrix (8192^2 fp32 = 256 MB per
-pair), we stream column tiles of B with lax.scan, flash-attention style,
+Design: descriptors are unit-L2 (RootSIFT), so L2 distance is
+dist = sqrt(2 - 2*sim) and knn search becomes one [N, N] similarity matmul
+(bf16 operands, f32 accumulation).  Instead of materialising the full
+matrix (8192^2 fp32 = 256 MB per pair), we stream column tiles of B with
+lax.scan, flash-attention style,
 keeping only running top-2 statistics per A row and per B column (the
 B-column top-2 falls out for free because every tile holds complete columns).
 Arrays are fixed-capacity with validity masks — no dynamic shapes anywhere.
@@ -118,9 +119,20 @@ def match_descriptors_pair(
         init,
         (jnp.arange(num_tiles, dtype=jnp.int32), b_tiles, maskb_tiles),
     )
-    col1 = col1.reshape(n_b)
-    colarg = colarg.reshape(n_b)
-    col2 = col2.reshape(n_b)
+    return decide_matches(
+        t1, i1, t2, col1.reshape(n_b), colarg.reshape(n_b), col2.reshape(n_b),
+        mask_a, ratio=ratio, max_distance=max_distance,
+        cross_check=cross_check,
+    )
+
+
+def decide_matches(t1, i1, t2, col1, colarg, col2, mask_a, *, ratio: float,
+                   max_distance: float, cross_check: bool):
+    """Ratio, distance and cross-check decision from the six top-2
+    statistics (row top1/argmax/top2 over B, column top1/argmax/top2 over
+    A), shared by the scan matcher and the fused kernel."""
+    n_a = t1.shape[0]
+    n_b = col1.shape[0]
 
     def dist(sim):
         return jnp.sqrt(jnp.maximum(2.0 - 2.0 * sim, 0.0))
@@ -141,27 +153,9 @@ def match_descriptors_pair(
     return jnp.where(ok, i1, -1).astype(jnp.int32)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("ratio", "max_distance", "cross_check", "col_tile"),
-)
-def match_descriptors_pair_auto(desc_a, desc_b, mask_a, mask_b, **kw):
-    """Backend-dispatching single-pair matcher: the fused Pallas kernel on
-    TPU, the XLA scan matcher elsewhere (identical outputs)."""
-    if jax.default_backend() == "tpu":
-        from monocularsfm_tpu.ops.pallas_matching import (
-            match_descriptors_pair_pallas,
-        )
-
-        kw.pop("col_tile", None)
-        return match_descriptors_pair_pallas(
-            desc_a, desc_b, mask_a, mask_b, **kw)
-    return match_descriptors_pair(desc_a, desc_b, mask_a, mask_b, **kw)
-
-
 # Batched variant: one dispatch matches a slab of pairs. Gathers the per-image
 # descriptor slabs from a device-resident bank — the scheduling (which pairs)
-# stays on host, the O(pairs * N^2 * D) math stays on the MXU.
+# stays on host, the O(pairs * N^2 * D) math stays on the device.
 @functools.partial(
     jax.jit,
     static_argnames=(
@@ -179,31 +173,24 @@ def match_pairs_batch(
 ) -> jnp.ndarray:
     """Returns idx_b: int32 (P, N) match map per pair.
 
-    kernel: "pallas" (fused VMEM matmul+top-2 kernel — measured 74x the
-    scan matcher on v5e at 8192 capacity, bit-identical output), "xla"
-    (lax.scan column tiles; the only option off-TPU), or "auto" (pallas on
-    TPU, xla elsewhere)."""
+    kernel: "xla" (lax.scan over column tiles; runs on every backend),
+    "triton" (the fused tile kernel of ops/pallas_matching.py; GPU only,
+    raises on any other backend), or "auto" (triton on a GPU, xla
+    elsewhere)."""
+    backend = jax.default_backend()
     if kernel == "auto":
-        kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if kernel == "pallas":
-        from monocularsfm_tpu.ops.pallas_matching import (
-            match_descriptors_pair_pallas,
-        )
+        kernel = "triton" if backend == "gpu" else "xla"
+    if kernel == "triton":
+        if backend != "gpu":
+            raise ValueError(
+                f"kernel='triton' needs a GPU backend, not {backend!r}")
+        from monocularsfm_tpu.ops.pallas_matching import match_pairs_fused
 
-        interpret = jax.default_backend() != "tpu"  # CPU tests run the
-        # kernel through the pallas interpreter (slow but exact)
-
-        def one_p(pair):
-            ia, ib = pair[0], pair[1]
-            return match_descriptors_pair_pallas(
-                desc_bank[ia], desc_bank[ib], mask_bank[ia], mask_bank[ib],
-                ratio=ratio, max_distance=max_distance,
-                cross_check=cross_check, interpret=interpret,
-            )
-
-        # lax.map (sequential) rather than vmap: each pallas_call already
-        # fills the chip; batching would only multiply VMEM pressure.
-        return jax.lax.map(one_p, pair_ids)
+        return match_pairs_fused(
+            desc_bank, mask_bank, pair_ids, ratio=ratio,
+            max_distance=max_distance, cross_check=cross_check)
+    if kernel != "xla":
+        raise ValueError(f"unknown matching kernel {kernel!r}")
 
     def one(pair):
         ia, ib = pair[0], pair[1]

@@ -1,27 +1,17 @@
-"""Pallas TPU kernel for descriptor matching (fused matmul + top-2).
+"""Fused descriptor-matching kernel for NVIDIA GPUs (Pallas, Triton route).
 
-The XLA version in ops/matching.py streams column tiles with lax.scan; this
-kernel goes one level lower: the (Tr, Tc) similarity tile lives only in VMEM
-— the MXU matmul and both directions' per-tile top-2 statistics are fused in
-one pass, and nothing O(N^2) ever touches HBM.
+The XLA matcher in ops/matching.py writes every (N_A, col_tile) f32
+similarity tile to device memory and reads it back for the max, the argmax
+and the runner-up of both directions.  Here one block computes one
+(row_tile, col_tile) bf16 tile product, keeps it in registers, and writes
+only that tile's row- and column-direction top-2 partials.  Blocks carry
+nothing from one to another, so they may run in any order; a small jnp
+epilogue merges the partials across tiles and applies the shared
+ratio/distance/cross-check decision of ops/matching.py.
 
-Layout is chosen for Mosaic: every grid step writes its tile's row/column
-top-2 partials to *statically blocked* outputs, flattened so the block
-alignment rules hold (Mosaic requires the last two block dims to be
-(8k, 128k) or equal to the array dims — a (1, T) block over a (G, N)
-array violates the sublane rule, so we store partials as (1, G*N)):
-
-    row partials: (1, num_col_tiles * N_A)  — block (1, Tr) at (0, c*num_r + r)
-    col partials: (1, num_row_tiles * N_B)  — block (1, Tc) at (0, r*num_c + c)
-
-so the kernel needs no cross-tile scratch, no dynamic VMEM slices, and no
-grid-order assumptions (dynamic 1-D scratch accumulation trips Mosaic's
-alignment prover: "cannot statically prove index is a multiple of 1024").
-The cross-tile merge is a tiny O(num_tiles * N) jnp epilogue — ~3 MB of
-partials against a 17 GFLOP matmul.
-
-Outputs after the merge match ops/matching.py's six statistics exactly; the
-ratio/cross-check decision logic is shared plain jnp.
+The pair index is the outer grid axis: each block loads its own pair's image
+rows from `pair_ids`, so one launch matches a whole slab of pairs out of the
+device-resident descriptor bank.
 """
 
 from __future__ import annotations
@@ -31,160 +21,126 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-NEG = -1e30
+from monocularsfm_tpu.ops.matching import NEG, decide_matches
+
+# Tile and launch shape: the fastest of eleven (row, col, warps, stages)
+# settings timed on an H100 at 16 pairs x 8192 x 128, together with
+# (256, 64, 4, 1), which is within run-to-run spread of it but would not
+# divide the 128-row preemptive bank.
+ROW_TILE = 128
+COL_TILE = 64
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
-def _match_tile_kernel(
-    a_ref, b_ref, ma_ref, mb_ref,
-    rt1_ref, ri1_ref, rt2_ref, ct1_ref, ci1_ref, ct2_ref,
-):
-    c = pl.program_id(0)
+def _match_tile_kernel(pair_ref, bank_ref, mask_ref,
+                       rt1_ref, ri1_ref, rt2_ref, ct1_ref, ci1_ref, ct2_ref):
+    p = pl.program_id(0)
     r = pl.program_id(1)
-    Tr = a_ref.shape[0]
-    Tc = b_ref.shape[0]
-
-    # Explicit bf16 operands + DEFAULT precision: the package-wide
-    # jax_default_matmul_precision=float32 would otherwise stamp an fp32
-    # contract precision on bf16 operands, which Mosaic rejects ("Bad lhs
-    # type"); bf16 x bf16 -> f32 accumulate is the intended single-pass MXU
-    # path (same semantics as the XLA matcher's explicit bf16 cast).
+    c = pl.program_id(2)
+    tr = rt1_ref.shape[-1]
+    tc = ct1_ref.shape[-1]
+    ia = pair_ref[p, 0]
+    ib = pair_ref[p, 1]
+    a = bank_ref[ia, pl.ds(r * tr, tr), :]
+    b = bank_ref[ib, pl.ds(c * tc, tc), :]
+    ma = mask_ref[ia, pl.ds(r * tr, tr)] != 0
+    mb = mask_ref[ib, pl.ds(c * tc, tc)] != 0
     sims = jax.lax.dot_general(
-        a_ref[:].astype(jnp.bfloat16), b_ref[:].astype(jnp.bfloat16),
-        dimension_numbers=(((1,), (1,)), ((), ())),
+        a, b, dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.DEFAULT,
-    )  # (Tr, Tc)
-    sims = jnp.where(mb_ref[0, :].reshape(1, Tc) != 0, sims, NEG)
-    sims = jnp.where(ma_ref[0, :].reshape(Tr, 1) != 0, sims, NEG)
+    )  # (tr, tc), bf16 products accumulated in f32
+    sims = jnp.where(ma[:, None] & mb[None, :], sims, NEG)
 
-    # Row-direction top-2 within this tile (global column indices).
+    # Row direction: top-2 over this tile's columns (global column ids).
     t1 = jnp.max(sims, axis=1)
     arg = jnp.argmax(sims, axis=1).astype(jnp.int32)
     cols = jax.lax.broadcasted_iota(jnp.int32, sims.shape, 1)
-    t2 = jnp.max(jnp.where(cols == arg[:, None], NEG, sims), axis=1)
-    rt1_ref[0, :] = t1
-    ri1_ref[0, :] = arg + c * Tc
-    rt2_ref[0, :] = t2
+    rt1_ref[...] = t1
+    ri1_ref[...] = arg + c * tc
+    rt2_ref[...] = jnp.max(jnp.where(cols == arg[:, None], NEG, sims), axis=1)
 
-    # Column-direction top-2 within this tile (global row indices).
+    # Column direction: top-2 over this tile's rows (global row ids).
     ct1 = jnp.max(sims, axis=0)
     carg = jnp.argmax(sims, axis=0).astype(jnp.int32)
     rows = jax.lax.broadcasted_iota(jnp.int32, sims.shape, 0)
-    ct2 = jnp.max(jnp.where(rows == carg[None, :], NEG, sims), axis=0)
-    ct1_ref[0, :] = ct1
-    ci1_ref[0, :] = carg + r * Tr
-    ct2_ref[0, :] = ct2
+    ct1_ref[...] = ct1
+    ci1_ref[...] = carg + r * tr
+    ct2_ref[...] = jnp.max(jnp.where(rows == carg[None, :], NEG, sims), axis=0)
 
 
 def _merge_partials(t1p, i1p, t2p):
-    """Merge per-tile top-2 partials along axis 0. (G, N) -> 3 x (N,)."""
+    """Merge per-tile top-2 partials along axis 0: (G, N) -> 3 x (N,).
+    Ties keep the first tile, i.e. the smallest index, like the scan."""
     g = jnp.argmax(t1p, axis=0)
     t1 = jnp.take_along_axis(t1p, g[None], axis=0)[0]
     i1 = jnp.take_along_axis(i1p, g[None], axis=0)[0]
-    # Runner-up: the winning tile contributes its top2, every other tile its
-    # top1.
-    G = t1p.shape[0]
-    tile_ids = jnp.arange(G, dtype=jnp.int32)[:, None]
-    rest = jnp.where(tile_ids == g[None, :], t2p, t1p)
-    t2 = jnp.max(rest, axis=0)
+    # Runner-up: the winning tile contributes its top2, every other tile
+    # its top1.
+    tile_ids = jnp.arange(t1p.shape[0], dtype=jnp.int32)[:, None]
+    t2 = jnp.max(jnp.where(tile_ids == g[None, :], t2p, t1p), axis=0)
     return t1, i1, t2
 
 
 @functools.partial(
-    jax.jit, static_argnames=("row_tile", "col_tile", "interpret")
-)
-def _match_stats_pallas(
-    desc_a, desc_b, mask_a, mask_b,
-    row_tile: int = 512, col_tile: int = 512, interpret: bool = False,
-):
-    n_a, d = desc_a.shape
-    n_b = desc_b.shape[0]
-    assert n_a % row_tile == 0 and n_b % col_tile == 0
-    num_r = n_a // row_tile
-    num_c = n_b // col_tile
-
-    a = desc_a.astype(jnp.bfloat16)
-    b = desc_b.astype(jnp.bfloat16)
-    # Masks as (1, N) int32: 1-D VMEM operands trip Mosaic/XLA tiled-layout
-    # mismatches, 2-D (1, tile) blocks are always legal.
-    ma = mask_a.astype(jnp.int32).reshape(1, n_a)
-    mb = mask_b.astype(jnp.int32).reshape(1, n_b)
-
-    grid = (num_c, num_r)
-    out_shapes = (
-        jax.ShapeDtypeStruct((1, num_c * n_a), jnp.float32),  # row top1 partials
-        jax.ShapeDtypeStruct((1, num_c * n_a), jnp.int32),    # row top1 idx
-        jax.ShapeDtypeStruct((1, num_c * n_a), jnp.float32),  # row top2
-        jax.ShapeDtypeStruct((1, num_r * n_b), jnp.float32),  # col top1 partials
-        jax.ShapeDtypeStruct((1, num_r * n_b), jnp.int32),    # col argmax
-        jax.ShapeDtypeStruct((1, num_r * n_b), jnp.float32),  # col top2
-    )
-    row_out_spec = pl.BlockSpec(
-        (1, row_tile), lambda c, r: (0, c * num_r + r), memory_space=pltpu.VMEM
-    )
-    col_out_spec = pl.BlockSpec(
-        (1, col_tile), lambda c, r: (0, r * num_c + c), memory_space=pltpu.VMEM
-    )
-
-    rt1, ri1, rt2, ct1, ci1, ct2 = pl.pallas_call(
-        _match_tile_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((row_tile, d), lambda c, r: (r, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((col_tile, d), lambda c, r: (c, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, row_tile), lambda c, r: (0, r), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, col_tile), lambda c, r: (0, c), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            row_out_spec, row_out_spec, row_out_spec,
-            col_out_spec, col_out_spec, col_out_spec,
-        ),
-        out_shape=out_shapes,
-        interpret=interpret,
-    )(a, b, ma, mb)
-
-    t1, i1, t2 = _merge_partials(
-        rt1.reshape(num_c, n_a), ri1.reshape(num_c, n_a), rt2.reshape(num_c, n_a)
-    )
-    col1, colarg, col2 = _merge_partials(
-        ct1.reshape(num_r, n_b), ci1.reshape(num_r, n_b), ct2.reshape(num_r, n_b)
-    )
-    return t1, i1, t2, col1, colarg, col2
-
-
-@functools.partial(
     jax.jit,
-    static_argnames=("ratio", "max_distance", "cross_check", "row_tile",
-                     "col_tile", "interpret"),
+    static_argnames=("ratio", "max_distance", "cross_check", "interpret"),
 )
-def match_descriptors_pair_pallas(
-    desc_a, desc_b, mask_a, mask_b,
+def match_pairs_fused(
+    desc_bank, mask_bank, pair_ids,
     ratio: float = 0.8,
     max_distance: float = 0.7,
     cross_check: bool = True,
-    row_tile: int = 512,
-    col_tile: int = 512,
     interpret: bool = False,
 ):
-    """Drop-in equivalent of ops.matching.match_descriptors_pair."""
-    n_a = desc_a.shape[0]
-    n_b = desc_b.shape[0]
-    t1, i1, t2, col1, colarg, col2 = _match_stats_pallas(
-        desc_a, desc_b, mask_a, mask_b,
-        row_tile=row_tile, col_tile=col_tile, interpret=interpret,
+    """Same contract as ops.matching.match_pairs_batch: (I, N, D) bank,
+    (I, N) masks, (P, 2) image-row pairs -> int32 (P, N) idx_b maps.
+
+    N must be a multiple of both tiles and D a power of two (Triton loads
+    power-of-two blocks).  `interpret=True` runs the kernel through the
+    Pallas interpreter (CPU tests)."""
+    _, n, d = desc_bank.shape
+    row_tile, col_tile = ROW_TILE, COL_TILE
+    if n % row_tile or n % col_tile:
+        raise ValueError(f"capacity {n} is not a multiple of the tiles "
+                         f"({row_tile}, {col_tile})")
+    if d & (d - 1):
+        raise ValueError(f"descriptor width {d} is not a power of two")
+    P = pair_ids.shape[0]
+    nr, nc = n // row_tile, n // col_tile
+    row_spec = pl.BlockSpec((None, None, row_tile), lambda p, r, c: (p, c, r))
+    col_spec = pl.BlockSpec((None, None, col_tile), lambda p, r, c: (p, r, c))
+    row_shape = (P, nc, n)
+    col_shape = (P, nr, n)
+    rt1, ri1, rt2, ct1, ci1, ct2 = pl.pallas_call(
+        _match_tile_kernel,
+        grid=(P, nr, nc),
+        out_specs=(row_spec, row_spec, row_spec, col_spec, col_spec, col_spec),
+        out_shape=(
+            jax.ShapeDtypeStruct(row_shape, jnp.float32),
+            jax.ShapeDtypeStruct(row_shape, jnp.int32),
+            jax.ShapeDtypeStruct(row_shape, jnp.float32),
+            jax.ShapeDtypeStruct(col_shape, jnp.float32),
+            jax.ShapeDtypeStruct(col_shape, jnp.int32),
+            jax.ShapeDtypeStruct(col_shape, jnp.float32),
+        ),
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES),
+        interpret=interpret,
+        name="match_tile_top2",
+    )(
+        pair_ids.astype(jnp.int32),
+        desc_bank.astype(jnp.bfloat16),
+        mask_bank.astype(jnp.int32),
     )
-
-    def dist(sim):
-        return jnp.sqrt(jnp.maximum(2.0 - 2.0 * sim, 0.0))
-
-    d1, d2 = dist(t1), dist(t2)
-    ok = mask_a & (t1 > NEG / 2)
-    ok &= d1 < ratio * d2
-    ok &= d1 <= max_distance
-    if cross_check:
-        j = jnp.clip(i1, 0, n_b - 1)
-        ok &= colarg[j] == jnp.arange(n_a, dtype=jnp.int32)
-        ok &= dist(col1[j]) < ratio * dist(col2[j])
-    return jnp.where(ok, i1, -1).astype(jnp.int32)
+    merge = jax.vmap(_merge_partials)
+    t1, i1, t2 = merge(rt1, ri1, rt2)
+    col1, colarg, col2 = merge(ct1, ci1, ct2)
+    mask_a = mask_bank[pair_ids[:, 0]]
+    return jax.vmap(functools.partial(
+        decide_matches, ratio=ratio, max_distance=max_distance,
+        cross_check=cross_check,
+    ))(t1, i1, t2, col1, colarg, col2, mask_a)

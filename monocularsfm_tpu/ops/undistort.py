@@ -52,8 +52,7 @@ def undistort_normalized(xd: jnp.ndarray, dist: jnp.ndarray, iterations: int = 8
 def undistort_pixels(uv, K, dist, iterations: int = 8):
     """Pixel -> undistorted pixel (same K for reprojection afterwards).
 
-    Jitted: eager per-op dispatch costs seconds per call over a remote-
-    compile TPU backend (each tiny op compiles separately)."""
+    Jitted: eager per-op dispatch would compile each tiny op separately."""
     uv = jnp.asarray(uv, jnp.float32)
     K = jnp.asarray(K, jnp.float32)
     dist = jnp.asarray(dist, jnp.float32)

@@ -1,13 +1,13 @@
-"""Visual-vocabulary retrieval: k-means training + TF-IDF scoring on MXU.
+"""Visual-vocabulary retrieval: k-means training + TF-IDF scoring by matmul.
 
 Reference parity: `VocaburaryTreeFeatureMatcher` is declared but never
 implemented in the reference (include/Feature/FeatureMatching.h:137-141;
 config comment "2 for vacabulary tree match(not support now)") — this module
 supplies the missing capability.
 
-TPU-native design: the hierarchical *tree* in classic vocab-tree matching
+Device design: the hierarchical *tree* in classic vocab-tree matching
 (Nister & Stewenius 2006) exists to make nearest-word search logarithmic on a
-CPU.  On an MXU, exact nearest-centroid assignment over a flat vocabulary of
+CPU.  On an accelerator, exact nearest-centroid assignment over a flat vocabulary of
 K words is a single (N, 128) x (128, K) matmul followed by an argmax — both
 faster and more accurate than approximate tree descent (no quantization error
 from greedy path choices).  So:

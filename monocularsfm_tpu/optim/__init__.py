@@ -1,4 +1,4 @@
-"""Bundle adjustment: Levenberg-Marquardt with Schur complement, TPU-native.
+"""Bundle adjustment: Levenberg-Marquardt with Schur complement on device.
 
 Replaces the reference's Ceres stack (src/Optimizer/CeresBundleOptimizer.cpp):
 same residual model (angle-axis rotate + translate + pinhole f*x/z against

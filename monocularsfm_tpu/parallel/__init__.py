@@ -1,8 +1,9 @@
 """Multi-chip scale-out: mesh construction, sharded matching, distributed BA.
 
 The reference is single-process with zero parallelism (SURVEY.md section 5);
-this layer is a new design axis: JAX collectives over ICI inside shard_map
-across a jax.sharding.Mesh; jax.distributed + DCN for multi-host.
+this layer is a new design axis: JAX collectives inside shard_map across a
+jax.sharding.Mesh (NVLink between the GPUs of one host); jax.distributed
+for multi-host.
 """
 
 from monocularsfm_tpu.parallel.mesh import init_multi_host, make_mesh

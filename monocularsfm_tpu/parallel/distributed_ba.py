@@ -5,7 +5,7 @@ a slab of landmarks and their observations; cameras are replicated.  Every
 LM iteration each chip computes its residuals, Jacobian blocks, point
 (V, g_p) blocks and its *contribution* to the reduced camera system; the
 camera-side quantities (U, rhs, Schur S, cost, predicted reduction) are
-psum-reduced over ICI, the replicated dense solve happens identically on
+psum-reduced across the mesh, the replicated dense solve happens identically on
 every chip, and point back-substitution is purely local.  One collective-
 synchronised lax.while_loop drives the whole optimisation with zero host
 round-trips.
@@ -72,19 +72,17 @@ def distributed_bundle_adjust(
 ):
     """Run LM with the point/observation axis sharded over `mesh`.
 
-    Works on single-host meshes (ICI) and, after `init_multi_host`, on
-    meshes spanning processes over DCN — the 1-chip / 1-host / N-host
+    Works on single-host meshes and, after `init_multi_host`, on meshes
+    spanning processes over the network — the 1-device / 1-host / N-host
     scaling axis of SURVEY.md section 5.  Returns the same dict as
     bundle_adjust; X is gathered back to full size on single-host meshes
     and stays point-sharded (padded to the mesh size) across processes.
 
-    Like the single-device driver, the optimisation is host-driven in
-    bounded dispatch segments (see optim/ba.py `_auto_dispatch_iters`);
-    solver state stays device-resident and sharded between segments.
+    Like the single-device driver, one dispatch runs the whole solve unless
+    `dispatch_iters` caps the LM iterations per dispatch; solver state then
+    stays device-resident and sharded between segments.
     """
-    from monocularsfm_tpu.optim.ba import (
-        _auto_dispatch_iters, derive_pcg_cached_statics,
-    )
+    from monocularsfm_tpu.optim.ba import derive_pcg_cached_statics
 
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size
@@ -144,10 +142,7 @@ def distributed_bundle_adjust(
         return _to_global(a, rep, mesh) if multi_host else a
 
     if dispatch_iters is None:
-        dispatch_iters = _auto_dispatch_iters(
-            prob.obs_cam.size // n_dev, solve_mode,
-            kwargs.get("pcg_iters", 100), kwargs.get("pcg_cached", False),
-        )
+        dispatch_iters = max_iterations
     out = fn_first(prob, _scalar(min(dispatch_iters, max_iterations)))
     first = out
     while (int(out["iterations"]) < max_iterations

@@ -12,8 +12,9 @@ def make_mesh(num_devices: int | None = None, axis_name: str = "data") -> Mesh:
 
     SfM workloads shard naturally along one data axis (images for
     extraction, pairs for matching, landmarks for BA), so a 1-D mesh covers
-    every stage; multi-host runs extend the same axis across DCN via
-    jax.distributed initialisation before calling this.
+    every stage; multi-host runs extend the same axis across hosts via
+    jax.distributed initialisation before calling this.  The GPUs of one
+    host are joined all to all, so the mesh follows the algorithm alone.
     """
     devices = jax.devices()
     if num_devices is not None:
@@ -24,19 +25,18 @@ def make_mesh(num_devices: int | None = None, axis_name: str = "data") -> Mesh:
 def init_multi_host(coordinator_address: str | None = None,
                     num_processes: int | None = None,
                     process_id: int | None = None):
-    """Initialise jax.distributed for multi-host meshes (DCN across hosts).
+    """Initialise jax.distributed for multi-host meshes.
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU clusters.  After this, make_mesh() sees
-    every chip in the slice and the same shard_map programs scale across
-    hosts — collectives ride ICI within a slice and DCN between them (the
+    Pass the three arguments explicitly: nothing in a plain GPU or CPU
+    cluster announces them.  After this, make_mesh() sees every device of
+    every process and the same shard_map programs scale across hosts (the
     reference has no distributed mode at all; SURVEY.md section 5).
     Safe to call more than once.
     """
     import jax
 
     # CPU meshes (tests / fake backends) need a cross-process collective
-    # implementation; gloo ships with jaxlib.  Harmless no-op on TPU.
+    # implementation; gloo ships with jaxlib.  No effect on GPU meshes.
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:

@@ -2,7 +2,7 @@
 
 Parallelism plan (b) from SURVEY.md section 2: the pair list shards across
 chips while the descriptor bank is replicated (collections whose banks
-exceed one chip's HBM rotate bank shards around the ICI ring instead — the
+exceed one device's memory rotate bank shards around a device ring instead — the
 SfM analogue of ring attention; see ring_bank_matching below for the
 single-host formulation).
 """
@@ -54,6 +54,9 @@ def sharded_match_pairs(
             mesh=mesh,
             in_specs=(P(), P(), P(axis)),
             out_specs=P(axis),
+            # The fused Pallas matcher declares plain output shapes, which
+            # shard_map's varying-axes check cannot type.
+            check_vma=False,
         )
     )
     out = fn(desc_bank, mask_bank, pair_ids)
@@ -72,12 +75,12 @@ def ring_all_pairs_matching(
 ):
     """All-pairs matching with the descriptor bank SHARDED over the mesh —
     the ring-attention analogue for SfM (SURVEY.md section 5: "rotate
-    descriptor shards around the ICI ring").
+    descriptor shards around the device ring").
 
     Each device keeps only I/n_dev images resident; at ring step k it matches
     its resident queries against the bank shard that arrived via ppermute
     (k hops around the ring), then forwards that shard to its neighbour.
-    Per-chip HBM stays O(2 * I/n_dev * N * D) regardless of collection size.
+    Per-device memory stays O(2 * I/n_dev * N * D) regardless of collection size.
 
     Matches are COMPACTED ON DEVICE to (max_matches, 2) (i, j) index pairs
     per image pair and streamed to the host one ring step at a time, so
@@ -141,7 +144,7 @@ def ring_all_pairs_matching(
         )
     )
 
-    desc = jnp.asarray(desc_bank, jnp.bfloat16)  # halves ICI traffic; the
+    desc = jnp.asarray(desc_bank, jnp.bfloat16)  # halves ring traffic; the
     # matmul runs in bf16 anyway (ops/matching.py casts internally).
     mask = jnp.asarray(mask_bank)
     rd, rm = desc, mask
@@ -217,7 +220,7 @@ def ring_bank_matching(
     ratio: float = 0.8,
     max_distance: float = 0.7,
 ):
-    """One query image vs a *sharded* descriptor bank (bank > HBM regime).
+    """One query image vs a *sharded* descriptor bank (bank > device memory).
 
     Each device holds a shard of candidate images' descriptors; the query
     descriptors are replicated.  Every device matches the query against its

@@ -42,9 +42,8 @@ def _homography_motion(K, H, x1j, x2j, inl):
     """Whole H-path device computation in one jit: Euclidean homography,
     Faugeras decomposition, cheirality triangulation of all 4 candidates.
 
-    One compiled dispatch instead of dozens of eager ops — on a remote-
-    compile TPU backend the eager path costs ~40 s per process (each tiny
-    op compiles separately and misses the persistent jit cache).
+    One compiled dispatch instead of dozens of eager ops, each of which
+    would compile separately and miss the persistent jit cache.
     Returns (xn1, xn2, Rs, ts, Xs, fronts, counts)."""
     Kinv = jnp.linalg.inv(K)
     H_euc = Kinv @ H.astype(jnp.float32) @ K

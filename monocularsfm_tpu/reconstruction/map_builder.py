@@ -260,7 +260,8 @@ class MapBuilder:
                 # Same capacity gate as global_ba: a top-5 covisible window
                 # over dense match graphs can hold >131k points (and the
                 # unsplit track width buckets to pow2(longest track)), so
-                # the dense path's padded per-observation blocks exceed HBM.
+                # the dense path's padded per-observation blocks exceed
+                # device memory.
                 # Rebuild the window split (tight track_width rows) and
                 # route to the flat PCG path.
                 prob, image_ids, pids = self.map.get_local_ba_data(
@@ -288,12 +289,14 @@ class MapBuilder:
             n_imgs = len(self.map.registered_ids)
             # Solver policy (CeresBundleOptimizer.cpp:262-276): dense Schur
             # for small bundles, matrix-free PCG (ITERATIVE_SCHUR analogue)
-            # beyond dense_max_images.  Also capacity-gated: the dense path's
-            # per-observation blocks tile-pad ~21-85x on TPU, and its unsplit
+            # beyond dense_max_images.  Also capacity-gated: the dense path
+            # materialises small per-observation blocks, and its unsplit
             # track width buckets to pow2(longest track) — dense cv2 match
             # graphs at 40 images reached 65k points x T=64 = 4.2M padded
-            # rows = 33 GB HBM.  The estimate below mirrors the bridge's
-            # exact bucketing (pow2(points) x pow2(max track length)).
+            # rows.  The gate (bundle.dense_max_obs) was sized on a 16 GB
+            # accelerator whose layouts padded those blocks ~21-85x; it has
+            # not been derived for the H100.  The estimate below mirrors the
+            # bridge's exact bucketing (pow2(points) x pow2(max track length)).
             from monocularsfm_tpu.reconstruction.map_state import (
                 pow2_bucket as _pow2,
             )
@@ -352,8 +355,9 @@ class MapBuilder:
                         bcfg.dense_max_images,
                     )
             # MONOSFM_DUMP_BA=path snapshots every global-BA problem to host
-            # numpy BEFORE the solve: a TPU worker crash makes the device
-            # arrays unreachable, so a post-mortem fetch cannot work.
+            # numpy BEFORE the solve: a device fault during the solve makes
+            # the device arrays unreachable, so a post-mortem fetch cannot
+            # work.
             dump = os.environ.get("MONOSFM_DUMP_BA")
             if dump:
                 arrs = {

@@ -18,7 +18,7 @@ business logic:
                                               (:965-1206)
   Statistics                                  (:1210-1319)
 
-TPU-native design: per-image state is struct-of-arrays (undistorted
+Device design: per-image state is struct-of-arrays (undistorted
 keypoints, colors, point3D back-pointers as one int32 array per image);
 points live in growable parallel numpy arrays with a free list; *all* error
 math (reprojection, parallax) is recomputed in vectorised batches instead of

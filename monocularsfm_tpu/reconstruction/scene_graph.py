@@ -7,7 +7,7 @@ Reference parity: src/Reconstruction/SceneGraph.cpp —
   Queries: FindCorrespondences (:253-258), FindCorrespondencesBetweenImages
         (:261-277), IsTwoViewObservation (:285-298), counts (:131-158).
 
-TPU-native design: instead of per-keypoint vector<(image, idx)> hash-maps,
+Device design: instead of per-keypoint vector<(image, idx)> hash-maps,
 the whole graph is three flat int32 arrays in CSR form, built once on the
 host and cheap to slice into device dispatches.  Keys are (image_id,
 keypoint_idx) pairs flattened as image_offset + kpt.

@@ -5,7 +5,7 @@ normal matrix over views and take the smallest eigenvector (:87-117); accept
 only if *every* view reprojects under tri_max_error_px (:38-51) and some
 camera pair reaches tri_min_angle_deg of parallax (:53-79).
 
-TPU-native: candidate tracks are padded to a fixed (B, T) window and the
+Device design: candidate tracks are padded to a fixed (B, T) window and the
 whole batch triangulates + tests in one dispatch — per-track Python loops
 never touch the device.
 """

@@ -1,7 +1,7 @@
 """Core id types and sentinel constants.
 
 Reference parity: include/Common/Types.h:9-14 defines image_t / image_pair_t /
-point2D_t / point3D_t as plain ints with INVALID = -1.  On TPU we use int32
+point2D_t / point3D_t as plain ints with INVALID = -1.  On device we use int32
 ids everywhere (device arrays) and the same -1 sentinel, which doubles as the
 padding value in fixed-capacity index arrays.
 """
@@ -13,7 +13,7 @@ import numpy as np
 # Sentinel for "no id" — also the padding value of every index array.
 INVALID = -1
 
-# Id dtypes used on device. int32 keeps index math on the VPU cheap.
+# Id dtypes used on device. int32 keeps index math cheap.
 IMAGE_T = np.int32
 POINT2D_T = np.int32
 POINT3D_T = np.int32

@@ -1,12 +1,12 @@
 """High-precision small-matrix products.
 
-TPU MXU contracts f32 operands in bf16 by default; for the small
-precision-critical products in the estimators/geometry (3x3 pose algebra,
-normal equations, SVD re-projections) the ~0.4% bf16 rounding is
-catastrophic — e.g. the PnP Gauss-Newton polish stalls at ~6 degrees of
-rotation error on TPU while CPU reaches 0.03 degrees (round-4 triage of the
-round-3 TPU quality failure).  `mm` chains jnp.matmul at Precision.HIGHEST;
-the cost is irrelevant at these sizes.
+A float32 matrix product on a GPU may run in TF32 (about three decimal
+digits) unless a precision is asked for; for the small precision-critical
+products in the estimators/geometry (3x3 pose algebra, normal equations, SVD
+re-projections) that rounding is catastrophic — a reduced-precision product
+once left the PnP Gauss-Newton polish at ~6 degrees of rotation error where
+full f32 reaches 0.03 degrees.  `mm` chains jnp.matmul at
+Precision.HIGHEST; the cost is irrelevant at these sizes.
 """
 
 from __future__ import annotations

@@ -110,18 +110,7 @@ def render_textured_images(
     """
     rng = np.random.default_rng(scene_seed)
     # Smooth random texture: blur noise at several octaves for SIFT-friendly blobs.
-    tex = np.zeros((texture_res, texture_res), dtype=np.float64)
-    try:
-        import cv2
-
-        for octave, sigma in ((9, 31), (5, 13), (3, 5)):
-            n = rng.uniform(0, 1, size=(texture_res, texture_res))
-            tex += cv2.GaussianBlur(n, (0, 0), sigma) * octave
-    except Exception:
-        n = rng.uniform(0, 1, size=(texture_res, texture_res))
-        tex = n
-    tex -= tex.min()
-    tex = (255 * tex / max(tex.max(), 1e-9)).astype(np.uint8)
+    tex = _make_texture(rng, texture_res, octaves=((9, 31), (5, 13), (3, 5)))
 
     # Plane spans [-3, 3]^2 at z=0; texture pixel (tx, ty) <-> world (X, Y, 0).
     plane_half = 3.0
@@ -170,15 +159,14 @@ def render_textured_images(
 def _make_texture(rng, res: int, octaves=((9, 31), (5, 13), (3, 5), (1.5, 2))):
     """Smoothed multi-octave noise texture — SIFT-friendly blobs at several
     scales plus a fine-grain component so corners survive downsampling."""
-    tex = np.zeros((res, res), dtype=np.float64)
-    try:
-        import cv2
+    from scipy.ndimage import gaussian_filter
 
-        for amp, sigma in octaves:
-            n = rng.uniform(0, 1, size=(res, res))
-            tex += cv2.GaussianBlur(n, (0, 0), sigma) * amp
-    except Exception:
-        tex = rng.uniform(0, 1, size=(res, res))
+    tex = np.zeros((res, res), dtype=np.float64)
+    for amp, sigma in octaves:
+        n = rng.uniform(0, 1, size=(res, res))
+        # mode="mirror" is cv2's default BORDER_REFLECT_101 and truncate=4
+        # its 4-sigma kernel radius for float64 input.
+        tex += gaussian_filter(n, sigma, mode="mirror", truncate=4.0) * amp
     tex -= tex.min()
     return (255 * tex / max(tex.max(), 1e-9)).astype(np.uint8)
 
@@ -268,16 +256,18 @@ def render_multiplane_images(
         best_s = np.full(xs.size, np.inf)
         best_val = np.full(xs.size, 12.0)
         for O, U, V, hu, hv, N, tex in planes:
-            dn = d.T @ N
+            # Ray C + s*d meets the plane at s; its in-plane coordinates are
+            # U.(C - O) + s*U.d and V.(C - O) + s*V.d.
+            dn, du, dv = (d.T @ np.stack([N, U, V], axis=1)).T
             dn = np.where(np.abs(dn) < 1e-9, 1e-9, dn)
             s = ((O - C) @ N) / dn
-            P = C[:, None] + s[None, :] * d  # (3, H*W)
-            rel = P - O[:, None]
-            u = U @ rel
-            v = V @ rel
-            hit = (s > 0.2) & (np.abs(u) <= hu) & (np.abs(v) <= hv) & (s < best_s)
-            if not hit.any():
+            u = U @ (C - O) + s * du
+            v = V @ (C - O) + s * dv
+            hit = np.flatnonzero(
+                (s > 0.2) & (np.abs(u) <= hu) & (np.abs(v) <= hv) & (s < best_s))
+            if not hit.size:
                 continue
+            s, u, v = s[hit], u[hit], v[hit]
             tres = tex.shape[0]
             txc = (u / hu * 0.5 + 0.5) * (tres - 1)
             tyc = (v / hv * 0.5 + 0.5) * (tres - 1)
@@ -292,8 +282,8 @@ def render_multiplane_images(
                 + tex[y0 + 1, x0] * (1 - fx) * fy
                 + tex[y0 + 1, x0 + 1] * fx * fy
             )
-            best_val = np.where(hit, val, best_val)
-            best_s = np.where(hit, s, best_s)
+            best_val[hit] = val
+            best_s[hit] = s
         img = best_val.reshape(height, width).astype(np.uint8)
         images.append(img)
         Rs.append(Rwc)

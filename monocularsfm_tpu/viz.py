@@ -3,7 +3,7 @@
 Reference parity: src/Visualization/Visualization.cpp runs a background
 std::thread with a cv::viz::Viz3d window fed by copy-in + dirty flags
 (AsyncVisualization, :17-126; cameras drawn as frusta, newest red).  A GUI
-window is useless on a headless TPU pod, so the TPU-native equivalent keeps
+window is useless on a headless accelerator host, so the equivalent here keeps
 the same producer API (update point cloud + camera poses, non-blocking) but
 renders to artifacts instead: a rolling PLY snapshot plus a self-contained
 HTML viewer (three.js-free, pure canvas point splatting) that can be opened

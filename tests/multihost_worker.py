@@ -3,7 +3,7 @@
 Spawned by tests/test_multihost.py (one subprocess per simulated host).
 Builds the SAME deterministic bundle problem on every process, joins the
 cluster via init_multi_host, runs landmark-sharded distributed BA over the
-global mesh (collectives cross process boundaries via gloo — the DCN
+global mesh (collectives cross process boundaries via gloo — the multi-host
 stand-in), and prints one JSON result line for the parent to compare with
 the single-process solve.
 """

@@ -1,6 +1,9 @@
 """Config tree: defaults mirror the reference Parameters structs; YAML load."""
 
+import pathlib
 import textwrap
+
+import pytest
 
 from monocularsfm_tpu import config as cfg_mod
 
@@ -107,10 +110,10 @@ def test_shipped_example_configs_load():
 
 
 def test_package_defaults_f32_matmul_precision():
-    """Round-4 triage: TPU MXU bf16 default matmul precision degraded TPU
-    registration residuals to ~2 px (CPU: 0.45 px) through the matmuls
-    inside jnp.linalg decompositions, which per-op Precision.HIGHEST
-    annotations cannot reach.  The package import must pin the f32 default
+    """A reduced-precision default for float32 matmuls (TF32 on a GPU)
+    degrades registration residuals through the matmuls inside jnp.linalg
+    decompositions, which per-op Precision.HIGHEST annotations cannot
+    reach.  The package import must pin the f32 default
     (monocularsfm_tpu/__init__.py); deliberate bf16 fast paths cast their
     operands explicitly."""
     import jax
@@ -118,3 +121,24 @@ def test_package_defaults_f32_matmul_precision():
     import monocularsfm_tpu  # noqa: F401
 
     assert jax.config.jax_default_matmul_precision == "float32"
+
+
+def test_json_config_loads_like_its_yaml_twin(tmp_path, monkeypatch):
+    """Every shipped YAML config, converted to JSON, loads to the same tree
+    through the stdlib json path, with PyYAML unavailable."""
+    import json
+    import sys
+
+    yaml = pytest.importorskip("yaml")
+    cfg_dir = pathlib.Path(cfg_mod.__file__).resolve().parent.parent / "config"
+    twins = []
+    for path in sorted(cfg_dir.glob("*.yaml")):
+        with open(path) as f:
+            raw = yaml.safe_load(f)
+        twin = tmp_path / (path.stem + ".json")
+        twin.write_text(json.dumps(raw))
+        twins.append((cfg_mod.load_yaml(path), twin))
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    for want, twin in twins:
+        assert cfg_mod.load_yaml(twin) == want, twin.name
+    assert len(twins) >= 4

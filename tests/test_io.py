@@ -93,11 +93,15 @@ class TestOpenMVS:
         assert info["images"] == 5
         assert info["posed_images"] == 3
 
-    def test_undistorted_image_dump(self, small_map, tmp_path):
+    @pytest.mark.parametrize("ext", [".ppm", ".jpg"])
+    def test_undistorted_image_dump(self, small_map, tmp_path, ext):
         """Dumped images are remapped through the distortion model
         (Map.cpp:1490-1519): a known distorted pattern must land back at its
-        undistorted pixel position."""
-        cv2 = pytest.importorskip("cv2")
+        undistorted pixel position.  PPM goes through numpy alone, JPEG
+        through OpenCV."""
+        if ext == ".jpg":
+            pytest.importorskip("cv2")
+        from monocularsfm_tpu.io.images import read_image, write_image
         from monocularsfm_tpu.io.openmvs import _undistort_maps
 
         w, h = 320, 240
@@ -107,19 +111,22 @@ class TestOpenMVS:
         mapx, mapy = _undistort_maps(K, dist, w, h)
         tx, ty = 220, 160
         sx, sy = int(round(mapx[ty, tx])), int(round(mapy[ty, tx]))
+        for im in small_map.images.values():
+            im.name = im.name.replace(".jpg", ext)
         src_dir = tmp_path / "photos"
         src_dir.mkdir()
+        yy, xx = np.mgrid[0:h, 0:w]
         img = np.zeros((h, w, 3), np.uint8)
-        cv2.circle(img, (sx, sy), 4, (255, 255, 255), -1)
+        img[(xx - sx) ** 2 + (yy - sy) ** 2 <= 16] = 255
         for i in range(4):
-            cv2.imwrite(str(src_dir / f"img_{i:04d}.jpg"), img)
+            write_image(src_dir / f"img_{i:04d}{ext}", img)
         out = tmp_path / "scene.mvs"
         write_openmvs(small_map, out, width=w, height=h,
                       images_path=str(src_dir), dist=dist)
         info = read_openmvs_summary(out)
         assert all(n.startswith("undistorted_images/") for n in info["image_names"])
-        und = cv2.imread(str(tmp_path / "undistorted_images" / "img_0000.jpg"))
-        assert und is not None and und.shape == (h, w, 3)
+        und = read_image(tmp_path / "undistorted_images" / f"img_0000{ext}")
+        assert und.shape == (h, w, 3)
         # The dot moved to the undistorted target position.
         yy, xx = np.where(und[:, :, 0] > 128)
         assert len(xx) > 0

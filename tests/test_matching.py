@@ -264,11 +264,13 @@ class TestVocabRetrieval:
 
 
 def test_match_pairs_batch_pallas_kernel_parity(rng):
-    """kernel='pallas' (the TPU pipeline default) must agree with the XLA
-    scan matcher — on CPU the kernel runs through the pallas interpreter."""
+    """The fused kernel (the GPU pipeline's matcher; here through the Pallas
+    interpreter) must agree with the XLA scan matcher on a bf16 bank, as
+    the pipeline uploads it."""
     import jax.numpy as jnp
 
     from monocularsfm_tpu.ops.matching import match_pairs_batch
+    from monocularsfm_tpu.ops.pallas_matching import match_pairs_fused
 
     cap = 1024  # multiple of both matchers' tile sizes
     base = rng.standard_normal((cap, 128)).astype(np.float32)
@@ -277,12 +279,12 @@ def test_match_pairs_batch_pallas_kernel_parity(rng):
         d = base + 0.4 * rng.standard_normal(base.shape).astype(np.float32)
         d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-9)
         bank.append(d)
-    bank = jnp.asarray(np.stack(bank))
+    bank = jnp.asarray(np.stack(bank), jnp.bfloat16)
     masks = jnp.ones((3, cap), bool)
     pairs = jnp.asarray([[0, 1], [1, 2]], jnp.int32)
     out_xla = np.asarray(match_pairs_batch(bank, masks, pairs, kernel="xla"))
     out_pal = np.asarray(
-        match_pairs_batch(bank, masks, pairs, kernel="pallas"))
+        match_pairs_fused(bank, masks, pairs, interpret=True))
     np.testing.assert_array_equal(out_xla, out_pal)
 
 

@@ -1,4 +1,4 @@
-"""Multi-host (>= 2 process) distributed BA: the DCN scaling point.
+"""Multi-host (>= 2 process) distributed BA: the multi-host scaling point.
 
 SURVEY.md section 5 distributed plan / BASELINE.md scaling report: the same
 shard_map BA program must run across PROCESS boundaries, not just local

@@ -2,22 +2,25 @@
 
 This is the complete user journey (the reference's pipeline.py) with real
 pictures: a textured plane rendered from known camera poses, written to disk
-as PNGs, processed purely through the CLI surface.
+as PGM with a JSON config, processed purely through the CLI surface — with
+OpenCV and PyYAML made unimportable, so the main path needs only JAX, numpy
+and scipy.
 """
 
-import pathlib
+import json
+import sys
 
 import numpy as np
-import pytest
 
 from monocularsfm_tpu import cli
 from monocularsfm_tpu.config import load_yaml
+from monocularsfm_tpu.io.images import write_image
 from monocularsfm_tpu.utils.synthetic import render_textured_images, similarity_align
 
 
-@pytest.mark.slow
-def test_pipeline_end_to_end(tmp_path):
-    cv2 = __import__("cv2")
+def test_pipeline_end_to_end(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "yaml", None)
     W, H, focal = 320, 240, 300.0
     imgs, K, R_gt, t_gt = render_textured_images(
         num_cameras=6, width=W, height=H, focal=focal, arc_deg=50.0, scene_seed=9
@@ -25,25 +28,22 @@ def test_pipeline_end_to_end(tmp_path):
     img_dir = tmp_path / "images"
     img_dir.mkdir()
     for i, im in enumerate(imgs):
-        cv2.imwrite(str(img_dir / f"frame_{i:04d}.png"), im)
+        write_image(img_dir / f"frame_{i:04d}.pgm", im)
 
-    cfg_path = tmp_path / "cfg.yaml"
-    cfg_path.write_text(
-        f"""
-images_path: {img_dir}
-database_path: {tmp_path/'db.db'}
-SIFTextractor.max_image_size: 1000
-SIFTextractor.num_features: 1200
-SIFTmatch.match_type: 1
-Camera.fx: {focal}
-Camera.fy: {focal}
-Camera.cx: {W/2}
-Camera.cy: {H/2}
-Reconstruction.output_path: {tmp_path/'out'}
-extraction:
-  batch_size: 2
-"""
-    )
+    cfg_path = tmp_path / "cfg.json"
+    cfg_path.write_text(json.dumps({
+        "images_path": str(img_dir),
+        "database_path": str(tmp_path / "db.db"),
+        "SIFTextractor.max_image_size": 1000,
+        "SIFTextractor.num_features": 1200,
+        "SIFTmatch.match_type": 1,
+        "Camera.fx": focal,
+        "Camera.fy": focal,
+        "Camera.cx": W / 2,
+        "Camera.cy": H / 2,
+        "Reconstruction.output_path": str(tmp_path / "out"),
+        "extraction": {"batch_size": 2},
+    }))
     assert cli.main(["pipeline", str(cfg_path)]) == 0
 
     out = tmp_path / "out"

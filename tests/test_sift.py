@@ -122,7 +122,7 @@ class TestSift:
 
 class TestPatchSampling:
     def test_patch_path_matches_gather_path(self, rendered):
-        """The patch/MXU formulation computes the same bilinear samples as
+        """The patch/matmul formulation computes the same bilinear samples as
         the gather formulation — descriptors and angles must agree to fp
         tolerance for interior keypoints (border handling differs: patch
         zero-pads, gather clamps)."""
@@ -211,17 +211,28 @@ class TestPatchSampling:
         np.testing.assert_allclose(
             np.asarray(gy_ref), np.asarray(gy_p), atol=1e-5)
 
-    def test_pallas_blur_matches_conv_oracle(self):
-        """ops/pallas_blur.blur_multi (interpret mode on CPU) vs the XLA
-        conv pyramid — identical blurs to fp tolerance."""
+    def test_octave_blur_matches_scipy(self):
+        """The pyramid's separable blurs vs scipy's Gaussian filter with the
+        same sigma and radius and replicated edges (mode="nearest"), in
+        float64 on the host."""
+        import math
+
         import jax.numpy as jnp
+        from scipy.ndimage import gaussian_filter1d
 
         from monocularsfm_tpu.ops import sift as S
-        from monocularsfm_tpu.ops.pallas_blur import blur_multi
 
         rng = np.random.default_rng(0)
         base = rng.random((2, 100, 150), np.float32)
-        ref = np.asarray(S._build_octave_batched_conv(jnp.asarray(base)))
-        out = np.asarray(blur_multi(
-            jnp.asarray(base), jnp.asarray(S._OCT_KER), interpret=True))
-        assert np.abs(ref[:, 1:] - out).max() < 1e-5
+        out = np.asarray(S._build_octave_batched(jnp.asarray(base)))
+        assert out.shape == (2, S.N_SCALES + 3, 100, 150)
+        np.testing.assert_array_equal(out[:, 0], base)
+        k = 2.0 ** (1.0 / S.N_SCALES)
+        for c in range(S.N_SCALES + 2):
+            sig = math.sqrt((S.SIGMA0 * k ** (c + 1)) ** 2 - S.SIGMA0 ** 2)
+            radius = max(int(math.ceil(3.0 * sig)), 1)
+            ref = base.astype(np.float64)
+            for axis in (1, 2):
+                ref = gaussian_filter1d(ref, sig, axis=axis, mode="nearest",
+                                        radius=radius)
+            assert np.abs(out[:, c + 1] - ref).max() < 1e-5, c
